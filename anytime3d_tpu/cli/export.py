@@ -4,8 +4,8 @@ The reference has no deployment story: inference means re-running a test
 script that rebuilds the graph from Python and restores per-submodel Keras
 weights (/root/reference/test_modelnet_3D.py:60-114). This writes ONE
 artifact a server loads with ``serving.load_infer`` — no model code, config,
-or checkpoint needed on the serving side, compiled for whatever backend
-loads it (TPU in prod, CPU in tests).
+or checkpoint needed on the serving side. The artifact is lowered for the
+GPU (``cuda``), whatever machine exports it.
 
   python -m anytime3d_tpu.cli.export --config modelnet_nolbo \
       --ckpt ckpt/ --batch-size 8 --out model.stablehlo
@@ -20,7 +20,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", required=True)
     parser.add_argument("--ckpt", default=None,
-                        help="Orbax checkpoint dir (omit: export init params, "
+                        help="checkpoint dir (omit: export init params, "
                              "useful only for smoke tests)")
     parser.add_argument("--batch-size", type=int, default=8,
                         help="the ONE compiled serving batch shape; "
@@ -68,6 +68,7 @@ def main(argv=None):
         input_shape=shape,
         prior_means=prior_means,
         correction=not args.no_correction,
+        platforms=("cuda",),
     )
     with open(args.out, "wb") as f:
         f.write(data)

@@ -20,7 +20,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--artifact", default=None, help="serialized serving program")
     p.add_argument("--config", default=None, help="REGISTRY name (export in-process)")
-    p.add_argument("--checkpoint", default=None, help="orbax checkpoint dir")
+    p.add_argument("--checkpoint", default=None, help="checkpoint dir (train/checkpoint.py)")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--dim", type=int, default=64)
     p.add_argument("--mask-dim", type=int, default=None)

@@ -140,6 +140,7 @@ def build_loaders(args, model_cfg):
 
 
 def main(argv=None):
+    """Train one registry config; returns the final TrainState."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", required=True, help="name from models.configs.REGISTRY")
     parser.add_argument("--data", default="synthetic", help="dataset path or 'synthetic'")
@@ -166,7 +167,6 @@ def main(argv=None):
                         help="train on the eval split and eval on train — the "
                              "reference's train_pascal{,_AE,_VAE}_test.py variants "
                              "(train_pascal_test.py:129-130)")
-    parser.add_argument("--compilation-cache", default="/tmp/anytime3d_jax_cache")
     args = parser.parse_args(argv)
 
     from anytime3d_tpu.models import configs
@@ -175,8 +175,7 @@ def main(argv=None):
     from anytime3d_tpu.train.trainer import Trainer, TrainerConfig
     from anytime3d_tpu.utils.profiling import enable_compilation_cache
 
-    if args.compilation_cache:
-        enable_compilation_cache(args.compilation_cache)
+    enable_compilation_cache()
 
     model_cfg, loss_cfg = configs.variant(args.config)
     dtype = jnp.bfloat16 if args.bf16 else jnp.float32
@@ -237,8 +236,9 @@ def main(argv=None):
             use_mesh=args.mesh,
         ),
     )
-    trainer.run(epoch_fn=lambda: loader.epoch)
+    state = trainer.run(epoch_fn=lambda: loader.epoch)
     print("\ndone; final metrics:", {k: round(v, 4) for k, v in trainer.logger.means().items()})
+    return state
 
 
 if __name__ == "__main__":

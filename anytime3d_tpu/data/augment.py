@@ -16,6 +16,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from anytime3d_tpu.data.native import native_lib
+
 try:
     import cv2
 except Exception:  # pragma: no cover - cv2 is present in the target image
@@ -325,7 +327,6 @@ def _find_augment_lib() -> Optional[ctypes.CDLL]:
     if _AUG_LIB_TRIED:
         return _AUG_LIB
     _AUG_LIB_TRIED = True
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env = os.environ.get("ANYTIME3D_AUGMENT_LIB")
     if env is not None and env.strip().lower() in ("", "0", "off", "none"):
         # explicit disable: force the classic cv2/NumPy path even when
@@ -333,10 +334,7 @@ def _find_augment_lib() -> Optional[ctypes.CDLL]:
         # one backend across machines (same convention as the sanitizer
         # override below — set the var to a path to use that build instead).
         return None
-    candidates = [
-        env or "",  # sanitizer builds etc.
-        os.path.join(here, "native", "libaugment.so"),
-    ]
+    candidates = [env or native_lib("libaugment.so") or ""]  # env: sanitizer builds
     for path in (c for c in candidates if c):
         if os.path.exists(path):
             try:

@@ -3,7 +3,7 @@
 Reference semantics: dataLoader at src/dataset_loader/modelnet_dataset.py:5-91
 — sharded .npy triples ({i}Full/Class/Inst.npy) under
 ``32to64_4rot_64sqr/{train,test}`` (30 train shards, 5 test shards), all in
-RAM, index-shuffled epochs. TPU-first additions: optional process sharding
+RAM, index-shuffled epochs. Additions: optional process sharding
 (each host loads every Nth shard — the multi-host input pipeline), memory-
 mapped loads, and a seeded RNG instead of global np.random.
 """

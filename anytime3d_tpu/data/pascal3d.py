@@ -9,7 +9,7 @@ Reference semantics: src/dataset_loader/pascal3D.py:56-283 (single object) and
       "class imgPath cadPath colMin rowMin colMax rowMax azimuth elevation inPlaneRot"
   CAD/<class>/<k>.npy                            64³ voxel models
 
-TPU-first re-design: a flat per-object record index built once at init (the
+Re-design: a flat per-object record index built once at init (the
 reference re-lists directories and re-reads objInfo.txt every batch,
 pascal3D.py:192-215), a thread pool for image decode+augment (cv2 releases
 the GIL), seeded RNG, and no silent ``except: pass`` — bad records are

@@ -72,7 +72,7 @@ class DevicePrefetcher:
         The join is unbounded on purpose: the worker re-checks ``_stop``
         between batches and inside its bounded ``put`` retries, so it exits
         within one batch assembly — but that can exceed any fixed timeout on
-        a contended host or tunneled device, and returning while the worker
+        a contended host or a slow device, and returning while the worker
         still runs would let a successor prefetcher race it on the shared
         (stateful) loader. A wedged ``batch_fn`` (loader stuck on IO) would
         otherwise hang silently, so log a heartbeat while waiting."""

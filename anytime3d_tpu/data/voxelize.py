@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from anytime3d_tpu.data.native import native_lib
+
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_TRIED = False
 
@@ -26,11 +28,9 @@ def _find_lib() -> Optional[ctypes.CDLL]:
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     candidates = [
         os.environ.get("ANYTIME3D_VOXELIZER_LIB", ""),  # sanitizer builds etc.
-        os.path.join(here, "native", "libvoxelizer.so"),
-        os.path.join(os.path.dirname(__file__), "libvoxelizer.so"),
+        native_lib("libvoxelizer.so") or "",
     ]
     candidates = [c for c in candidates if c]
     for path in candidates:

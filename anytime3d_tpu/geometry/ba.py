@@ -13,7 +13,7 @@ Design notes:
 - poses are (rvec, tvec) ∈ se(3)-ish (Rodrigues rotation vector); landmarks
   are 3-vectors; observations are pixel coords under a pinhole intrinsic.
 - Jacobians come from jax.jacfwd per observation, vmapped — exact, and the
-  2x9 blocks stay tiny so the MXU work is the (L, P6, P6) batched outer
+  2x9 blocks stay tiny so the matrix work is the (L, P6, P6) batched outer
   products, not autodiff overhead.
 - fixed observation structure: a dense (P, L) visibility mask. Absent
   observations contribute zero (masked), keeping shapes static for jit.
@@ -211,7 +211,7 @@ def ba_step_sharded(problem: BAProblem, mesh, damping: float = 1e-3):
     def step(poses, points, observations, mask, intrinsics):
         r, jp, jl = _residual_and_jacobians(poses, points, observations, mask, intrinsics)
         s, rhs, hll_inv, bl, w_flat = _schur_reduce(r, jp, jl, damping)
-        # combine shard-local reduced systems over ICI
+        # combine shard-local reduced systems across devices
         hpp_global = jax.lax.psum(s, "data")
         rhs_global = jax.lax.psum(rhs, "data")
         # NOTE: block_diag(hpp) + damping was added per shard; renormalize

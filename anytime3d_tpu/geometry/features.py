@@ -6,12 +6,12 @@ nolbo_test.py:81-188) and are lifted to metric 3D by src/visualizer/
 visualizer.py:237-308. The pose-graph / bundle-adjustment layer built here
 (geometry/posegraph.py, geometry/ba.py) additionally needs raw
 frame-to-frame correspondences to anchor keyframe poses, so this module
-supplies them TPU-natively:
+supplies them on the device:
 
 - everything is fixed-shape (max_keypoints slots + validity masks) so the
   whole front-end compiles once under jit;
-- detection is convolutions + elementwise math (VPU), descriptor matching
-  is one dense ``desc_a @ desc_b.T`` correlation (MXU) — no host loops, in
+- detection is convolutions + elementwise math, descriptor matching
+  is one dense ``desc_a @ desc_b.T`` correlation (a matmul) — no host loops, in
   contrast to the reference's python-loop NMS style (function.py:117-150).
 
 All functions take/return plain arrays and are vmap-able over a batch of
@@ -160,7 +160,7 @@ def match_descriptors(
 ) -> Matches:
     """Mutual-nearest-neighbour NCC matching with Lowe ratio test.
 
-    One dense correlation ``desc_a @ desc_b.T`` (the MXU does all the work),
+    One dense correlation ``desc_a @ desc_b.T`` (one matmul does all the work),
     then row/col argmax agreement. Output is fixed-shape (K_a slots).
     """
     corr = desc_a @ desc_b.T  # (Ka, Kb) NCC since descriptors are normalized

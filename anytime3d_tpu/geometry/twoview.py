@@ -8,7 +8,7 @@ pose-graph layer (geometry/posegraph.py) can be driven end-to-end from raw
 images: features (geometry/features.py) -> essential matrix -> relative
 pose -> pose-graph edge.
 
-TPU design: every solve is a fixed-shape batched linear-algebra problem —
+Design: every solve is a fixed-shape batched linear-algebra problem —
 one (N, 9) normal-equation SVD for E, four candidate (R, t) decompositions
 scored by a vmapped cheirality count, triangulation as a batched 3x3
 solve. Degenerate/invalid correspondences are handled by weights, not by

@@ -9,9 +9,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Tuple
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from anytime3d_tpu.nn import module as nn
 from anytime3d_tpu.nn.darknet import BACKBONES, Head2D
 
 

@@ -25,10 +25,10 @@ def _decoder64(input_dim: int) -> Decoder3DConfig:
         strides=(1, 2, 2, 2, 2),
         act="elu",
         final_act="sigmoid",
-        # TPU layout: last two stride-2 stages run at 16^3 with phase
+        # blocked tail: last two stride-2 stages run at 16^3 with phase
         # channels, one depth-to-space at the end (nn/autoencoder3d.py).
-        # 1.70x step throughput at quality parity (1000-step A/B: F1
-        # 0.973 vs 0.977 classic on the synthetic protocol).
+        # Quality parity in a 1000-step A/B (F1 0.973 vs 0.977 classic on
+        # the synthetic protocol); its speed on the H100 is not measured.
         tail_blocked=True,
     )
 
@@ -43,9 +43,9 @@ def _encoder3d(output_dim: int) -> Encoder3DConfig:
         final_pool="average",
         act="elu",
         final_act="none",
-        # TPU layout: first two stride-2 stages run at the 4x-coarse grid
-        # (input space-to-depth'd 4x4x4 into channels) — the 1-channel fine
-        # grid never touches the MXU. See nn/autoencoder3d.py::Encoder3D.
+        # blocked head: first two stride-2 stages run at the 4x-coarse grid
+        # (input space-to-depth'd 4x4x4 into channels) — no conv runs on the
+        # 1-channel fine grid. See nn/autoencoder3d.py::Encoder3D.
         stem_space_to_depth=2,
         head_blocked=True,
     )
@@ -63,8 +63,9 @@ def modelnet_nolbo(
     ``latent_dropout=True`` is the train_modelnet_category_dr.py variant
     (dropout flag on fit, nolbo.py:1619,1646-1648).
 
-    Layout note (r4 A/B, RESULTS.md): this THROUGHPUT default (blocked
-    head+tail, 14.3 ms/step) costs ~5 pts of nearest-prior category
+    Layout note (r4 A/B, RESULTS.md): this default layout (blocked
+    head+tail, chosen for throughput on the previous accelerator; not
+    measured on the H100) costs ~5 pts of nearest-prior category
     accuracy vs the classic decoder at matched budget — the cost is
     entirely the blocked/pixel-shuffle decoder TAIL (the blocked encoder
     head is free, measured acc 0.758 vs classic 0.744). Reconstruction
@@ -238,9 +239,8 @@ def modelnet_nolbo_acc(z_dim: int = 64, category_dim: int = 40) -> MMVAEConfig:
     elementwise-Adam dynamics as the classic transposed-conv decoder
     (parity-tested in tests/test_nn.py::TestTransposeEquiv), so the
     enc_blocked accuracy evidence transfers exactly — only the lowering
-    (and therefore the step time) changes. Measured step time (v5e, bf16,
-    B=32): see docs/KERNELS.md §10 (classic lowering was 28.4 ms vs 14.3
-    blocked).
+    (and therefore the step time) changes. Its step time on the H100 is
+    not measured.
 
     CHECKPOINT MIGRATION (r4): this name previously meant the classic
     lowering (``final_mode='transpose'``), whose param tree names the final
@@ -249,7 +249,7 @@ def modelnet_nolbo_acc(z_dim: int = 64, category_dim: int = 40) -> MMVAEConfig:
     old definition restore after renaming the decoder subtree with
     ``nn.autoencoder3d.remap_decoder_params(params['decoder'],
     src_cfg=<classic decoder>, dst_cfg=cfg.decoder)`` — the kernels are
-    tensor-identical, only the flax stage names differ (ADVICE r4)."""
+    tensor-identical, only the stage names differ (ADVICE r4)."""
     import dataclasses
 
     cfg = modelnet_nolbo(z_dim=z_dim, category_dim=category_dim)
@@ -271,8 +271,7 @@ def pascal_nolbo_acc(**kw) -> MMVAEConfig:
     accuracy cost to the decoder REPARAMETERIZATION, and the decoder here
     is the same `_decoder64`; an image-family A/B has not been run —
     prefer the blocked default for throughput unless classification
-    accuracy is critical. Measured step time (v5e, bf16, B=32, 96x128
-    images): 21.1 ms vs 13.1 blocked."""
+    accuracy is critical. Its step time on the H100 is not measured."""
     import dataclasses
 
     cfg = pascal_nolbo(**kw)

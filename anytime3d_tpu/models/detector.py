@@ -7,7 +7,7 @@ channel layout (nolbo_test.py:214-255):
    | ori_sin 3 | ori_cos 3 | rad_log_var 3]
 
 with activations sigmoid / (exp, sigmoid) / relu / identity / tanh / tanh /
-identity. Re-designed TPU-first: the reference's host python triple loop over
+identity. Re-designed: the reference's host python triple loop over
 (grid_row, grid_col, predictor) (nolbo_test.py:108-134) becomes one vectorized
 decode + fixed-size top-K selection + mask-based NMS, all inside jit; shape
 reconstruction batches all detections × samples through the decoder at once
@@ -19,10 +19,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from anytime3d_tpu.nn import module as nn
 from anytime3d_tpu.models.mmvae import MMVAEConfig  # noqa: F401  (doc cross-ref)
 from anytime3d_tpu.nn.autoencoder3d import Decoder3D, Decoder3DConfig
 from anytime3d_tpu.nn.darknet import BACKBONES, Head2D
@@ -98,20 +98,20 @@ class DetectorReconstructor(nn.Module):
             idx += n
             return out
 
-        objness = nn.sigmoid(take(1))
+        objness = jax.nn.sigmoid(take(1))
         bbox2d = take(cfg.bbox2d_dim)
         bbox2d = jnp.concatenate(
-            [jnp.exp(bbox2d[..., :2]), nn.sigmoid(bbox2d[..., 2:])], axis=-1
+            [jnp.exp(bbox2d[..., :2]), jax.nn.sigmoid(bbox2d[..., 2:])], axis=-1
         )  # (h, w) exp-decoded; (x, y) cell-relative sigmoid
-        bbox3d = nn.relu(take(cfg.bbox3d_dim))
+        bbox3d = jax.nn.relu(take(cfg.bbox3d_dim))
         z_mean = take(cfg.z_inst_dim)
         z_log_var = (
             take(cfg.z_inst_dim)
             if cfg.predict_log_var
             else jnp.zeros_like(z_mean)
         )
-        ori_sin = nn.tanh(take(cfg.orientation_dim))
-        ori_cos = nn.tanh(take(cfg.orientation_dim))
+        ori_sin = jax.nn.tanh(take(cfg.orientation_dim))
+        ori_cos = jax.nn.tanh(take(cfg.orientation_dim))
         rad_log_var = take(cfg.orientation_dim)
         return {
             "objness": objness,

@@ -20,10 +20,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from anytime3d_tpu.nn import module as nn
 from anytime3d_tpu.nn.autoencoder3d import Decoder3D, Decoder3DConfig, Encoder3D, Encoder3DConfig
 from anytime3d_tpu.nn.darknet import BACKBONES, Head2D
 from anytime3d_tpu.nn.heads import Head2DConfig
@@ -103,8 +103,8 @@ def decoder_blocked_block(cfg: MMVAEConfig) -> Optional[int]:
     same block-4 coarse layout via ``phase2_to_block4``) — so the acc
     configs' train/bench IO path is packed-blocked too. Image->shape
     training uses this to run the voxel loss in the blocked layout: the decoder's
-    final d2s relayout AND the fine-grid 1-channel elementwise loss (whose
-    C=1 lane-pads 128x on TPU) are both skipped — the loss/P-R are sums of
+    final d2s relayout AND the fine-grid 1-channel elementwise loss are both
+    skipped — the loss/P-R are sums of
     elementwise terms, so the layout permutation changes no metric."""
     from anytime3d_tpu.nn.autoencoder3d import (
         decoder_final_equiv_active,

@@ -1,7 +1,8 @@
-"""Flax network cores. Reference semantics: src/net_core/ (darknet.py,
-autoencoder3D.py, priornet.py) — re-designed TPU-first: GroupNorm instead of
-BatchNorm (cross-replica batch stats are hostile to pjit; SURVEY.md §7.2),
-channels-last layouts, bfloat16-friendly compute dtype plumbing.
+"""Network cores on the in-repo module layer (``nn.module``). Reference
+semantics: src/net_core/ (darknet.py, autoencoder3D.py, priornet.py) —
+re-designed: GroupNorm instead of BatchNorm (no cross-replica batch
+statistics under sharded jit; SURVEY.md §7.2), channels-last layouts,
+bfloat16-friendly compute dtype plumbing.
 """
 
 from anytime3d_tpu.nn.blocks import (

@@ -12,10 +12,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Sequence, Tuple
 
-import flax.linen as nn
 import jax.numpy as jnp
 import numpy as np
 
+from anytime3d_tpu.nn import module as nn
 from anytime3d_tpu.nn.blocks import (
     TRANSPOSE_MATCH_INIT,
     ConvBlock3D,
@@ -42,11 +42,11 @@ class Encoder3DConfig:
     final_pool: str = "average"  # 'average' | 'max' | 'none'
     act: str = "elu"
     final_act: str = "none"  # 'sigmoid' | 'none'
-    # TPU layout optimization: fold a 2x2x2 spatial block of the (typically
-    # 1-channel) input into channels before the stem conv. A k=4 s=2 stem
-    # becomes k=2 s=1 over 8 channels — same linear map family and FLOPs,
-    # but the MXU contraction no longer pads a 1-wide channel dim to full
-    # lanes. Requires stem stride divisible by the block.
+    # Layout option: fold a 2x2x2 spatial block of the (typically 1-channel)
+    # input into channels before the stem conv. A k=4 s=2 stem becomes k=2
+    # s=1 over 8 channels — same linear map family and FLOPs, with an 8-wide
+    # contraction instead of a 1-wide one. Requires stem stride divisible by
+    # the block.
     stem_space_to_depth: int = 1
     # Blocked head (mirror of the decoder's blocked tail): fold the input
     # 4x4x4 into channels and run the first TWO stride-2 stages as k=2 dense
@@ -56,9 +56,8 @@ class Encoder3DConfig:
     head_blocked: bool = False
     # Blocked middle: express every remaining stride-2 stage as
     # s2d(2) + k=2 s=1 dense conv — the same 4-taps-per-axis linear family
-    # with stride-1 MXU tiling, AND a clean backward: stride-1 convs have no
-    # zero-stuffed (input-dilated) gradient lowering, which KERNELS.md §6
-    # names as the dominant backward pathology of the stride-2 stages.
+    # with stride-1 tiling, AND a clean backward: stride-1 convs have no
+    # zero-stuffed (input-dilated) gradient lowering.
     mid_blocked: bool = False
 
     @property
@@ -77,16 +76,15 @@ class Decoder3DConfig:
     strides: Tuple[int, ...] = (1, 2, 2, 2, 2)
     act: str = "elu"
     final_act: str = "sigmoid"
-    # TPU layout optimization for the final (usually 1-channel) layer: a
-    # stride-2 transposed conv to 1 output channel leaves the MXU output
-    # dim at width 1 AND pays the zero-stuffed input-dilated lowering —
-    # measured 7.5 ms of a 10 ms decoder forward at 64^3/B=32. The
-    # pixel-shuffle form (k=2 dense conv emitting s^3*C channels at the
-    # coarse grid + depth-to-space) is the same 2-taps-per-axis linear
-    # family and runs 4.4x faster. 'transpose' keeps the classic lowering.
-    # 'transpose_equiv' is the EXACT phase-decomposed lowering of 'transpose'
-    # (blocks.py::ConvTransposeEquiv3D): identical parameter tensor, init,
-    # function, and elementwise-Adam dynamics, at pixel-shuffle-like speed.
+    # Lowering of the final (usually 1-channel) layer: a stride-2 transposed
+    # conv to 1 output channel has an output width of 1 AND a zero-stuffed
+    # input-dilated lowering. The pixel-shuffle form (k=2 dense conv
+    # emitting s^3*C channels at the coarse grid + depth-to-space) is the
+    # same 2-taps-per-axis linear family. 'transpose' keeps the classic
+    # lowering. 'transpose_equiv' is the EXACT phase-decomposed lowering of
+    # 'transpose' (blocks.py::ConvTransposeEquiv3D): identical parameter
+    # tensor, init, function, and elementwise-Adam dynamics. Which is
+    # fastest on the H100 is not measured.
     final_mode: str = "pixel_shuffle"  # 'pixel_shuffle' | 'transpose' | 'transpose_equiv'
     # Blocked tail: run the last TWO stride-2 stages at the coarse grid with
     # phase channels (k=2 dense convs, 8*C then s_tot^3*C_out channels) and a
@@ -101,7 +99,7 @@ class Decoder3DConfig:
     # (pixel-shuffle form), stride-1 tiling, no input-dilated lowering in
     # either direction.
     mid_blocked: bool = False
-    # Blocked-tail training-dynamics fixes (KERNELS.md §10 diagnosis — the
+    # Blocked-tail training-dynamics fixes (KERNELS.md §5 diagnosis — the
     # tail reparameterization, not the layout, costs category accuracy):
     # tail_init_match_transpose scales the two tail convs' init variance by
     # 1/8 so outputs start at the classic stride-2 transpose's std (which
@@ -164,7 +162,7 @@ def phase2_to_block4(u: jnp.ndarray, c: int) -> jnp.ndarray:
 def _decoder_stage_names(cfg: "Decoder3DConfig") -> list:
     """Flax submodule names of the decoder's conv stages, in order, for a
     given layout config — mirrors Decoder3D.__call__'s branch structure
-    (flax numbers instances per class)."""
+    (nn/module.py numbers instances per class)."""
     names, counts = [], {}
 
     def fresh(cls_name):
@@ -263,8 +261,8 @@ class Encoder3D(nn.Module):
         """``blocked_input=True`` means ``x`` is already in the s2d(4) coarse
         layout (B, D/4, H/4, W/4, 64*C) — the relayout is skipped. Only valid
         on the blocked-head path; lets the train step keep the whole voxel
-        round-trip at the coarse layout (the fine 64^3x1 grid, whose 1-wide
-        channel dim lane-pads 128x on TPU, is never materialized)."""
+        round-trip at the coarse layout (the fine 64^3x1 grid is never
+        materialized)."""
         cfg = self.config
         filters = cfg.all_filters
         sizes, strides = list(cfg.filter_sizes), list(cfg.strides)

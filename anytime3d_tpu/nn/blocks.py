@@ -2,22 +2,23 @@
 
 Reference counterparts: Darknet53Conv/Darknet19Conv (src/net_core/darknet.py:
 11-31, 83-94), conv3DEnc/conv3DDec/linearTransform (src/net_core/
-autoencoder3D.py:26-70). Differences by design (TPU-first):
+autoencoder3D.py:26-70). Differences by design:
 
 - GroupNorm replaces BatchNorm: no cross-replica batch statistics, identical
   behavior train vs eval, plays well with pjit/shard_map (SURVEY.md §7.2).
 - No kernel L2 inside modules; weight decay is applied functionally by the
   train step (``anytime3d_tpu.train.step.l2_penalty``) to keep modules pure.
-- Compute dtype is a parameter (bfloat16 on TPU); params stay float32.
+- Compute dtype is a parameter (bfloat16 for training); params stay float32.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+
+from anytime3d_tpu.nn import module as nn
 
 Dtype = Any
 
@@ -43,11 +44,11 @@ def space_to_depth3d(x: jnp.ndarray, b: int) -> jnp.ndarray:
     return x.reshape(B, D // b, H // b, W // b, b * b * b * C)
 
 ACTIVATIONS: dict[str, Callable] = {
-    "elu": nn.elu,
-    "relu": nn.relu,
-    "lrelu": lambda x: nn.leaky_relu(x, negative_slope=0.1),
-    "sigmoid": nn.sigmoid,
-    "tanh": nn.tanh,
+    "elu": jax.nn.elu,
+    "relu": jax.nn.relu,
+    "lrelu": lambda x: jax.nn.leaky_relu(x, negative_slope=0.1),
+    "sigmoid": jax.nn.sigmoid,
+    "tanh": jax.nn.tanh,
     "none": lambda x: x,
 }
 
@@ -124,7 +125,7 @@ class ConvBlock3D(nn.Module):
 
 class PhaseGroupNorm(nn.Module):
     """GroupNorm over a phase-folded tensor with the CLASSIC fine-grid
-    statistics (KERNELS.md §10 dynamics diagnosis; VERDICT r4 weak #1).
+    statistics (KERNELS.md §5 dynamics diagnosis; VERDICT r4 weak #1).
 
     The blocked decoder tail keeps stage outputs at the coarse grid with
     channels ordered (phase, c) — phase slowest, the ``depth_to_space3d``
@@ -227,8 +228,8 @@ def conv_transpose_equiv_kernel(kernel: jnp.ndarray) -> jnp.ndarray:
 
 
 class ConvTransposeEquiv3D(nn.Module):
-    """Exact TPU-friendly lowering of ``nn.ConvTranspose(features, (4,4,4),
-    strides=(2,2,2), padding='SAME', use_bias=False)``.
+    """Exact phase-decomposed lowering of ``nn.ConvTranspose(features,
+    (4,4,4), strides=(2,2,2), padding='SAME', use_bias=False)``.
 
     Computes a zero-structured k=3 SAME conv over the coarse grid emitting
     8*features phase channels, then one depth_to_space(2) back to the fine
@@ -236,11 +237,11 @@ class ConvTransposeEquiv3D(nn.Module):
     initializer as the classic ConvTranspose kernel and the function is
     identical, so the loss surface and elementwise-Adam dynamics match the
     classic layout exactly: this is a lowering choice, not a
-    reparameterization. Motivation: XLA's conv_transpose lowering pays an
-    MXU output width of Cout (128x lane padding at Cout=1) and a
-    zero-stuffed input-dilated backward; the phase form keeps the
-    contraction 8*Cout wide at the coarse grid with stride-1 tiling in
-    both directions (docs/KERNELS.md §10)."""
+    reparameterization. The phase form keeps the contraction 8*Cout wide
+    at the coarse grid and is stride-1 in both directions, where
+    conv_transpose has an output width of Cout and an input-dilated
+    backward (docs/KERNELS.md §5). Which lowering is faster on the GPU is
+    not measured."""
 
     features: int
     use_bias: bool = False
@@ -260,7 +261,7 @@ class ConvTransposeEquiv3D(nn.Module):
             jnp.float32,
         )
         kp = conv_transpose_equiv_kernel(kernel)
-        x, kp = nn.dtypes.promote_dtype(x, kp, dtype=self.dtype)
+        x, kp = nn.promote_dtype(x, kp, dtype=self.dtype)
         u = jax.lax.conv_general_dilated(
             x,
             kp,
@@ -274,7 +275,7 @@ class ConvTransposeEquiv3D(nn.Module):
             return u
         y = depth_to_space3d(u, 2)
         if self.use_bias:
-            bias = self.param("bias", nn.initializers.zeros_init(), (co,), jnp.float32)
+            bias = self.param("bias", nn.initializers.zeros, (co,), jnp.float32)
             y = y + bias.astype(y.dtype)
         return y
 

@@ -1,8 +1,8 @@
 """Darknet image backbones and the 2D encoder head.
 
 Reference semantics: src/net_core/darknet.py — Darknet19 (:96-133),
-Darknet53 (:46-56), Darknet53Tiny (:58-81), head2D (:149-168). TPU-first
-differences: GroupNorm, SAME-padded stride-2 convs (the reference's
+Darknet53 (:46-56), Darknet53Tiny (:58-81), head2D (:149-168). Differences
+by design: GroupNorm, SAME-padded stride-2 convs (the reference's
 asymmetric ZeroPad2D+valid trick exists only to mimic the original C darknet;
 SAME gives identical receptive fields and XLA-friendlier layouts).
 """
@@ -11,9 +11,9 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from anytime3d_tpu.nn import module as nn
 from anytime3d_tpu.nn.blocks import ConvBlock2D, activation, maxpool2d
 
 

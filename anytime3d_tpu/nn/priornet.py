@@ -11,9 +11,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from anytime3d_tpu.nn import module as nn
 from anytime3d_tpu.nn.blocks import activation, group_norm
 
 

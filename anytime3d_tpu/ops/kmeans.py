@@ -4,7 +4,7 @@ Reference semantics: kmeans_cosine at src/module/function.py:156-200 — used to
 build orientation anchor bins for the multi-object head (frozen results at
 src/dataset_loader/pascal3D.py:21-54). Re-designed as a fully vectorized
 ``lax.fori_loop`` fit: distance to all centres in one broadcast, centre
-update via one-hot matmul (MXU-friendly), no python loops over clusters.
+update via one-hot matmul, no python loops over clusters.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def _fit(x: jnp.ndarray, centres: jnp.ndarray, iters: int):
         assign = jnp.argmin(d, axis=-1)  # (N,)
         onehot = jax.nn.one_hot(assign, k, dtype=x.dtype)  # (N, K)
         counts = jnp.sum(onehot, axis=0)  # (K,)
-        sums = onehot.T @ x  # (K, D) — MXU matmul instead of per-cluster masking
+        sums = onehot.T @ x  # (K, D) — one matmul instead of per-cluster masking
         new = sums / jnp.maximum(counts, 1.0)[:, None]
         # keep old centre when a cluster is empty (reference behavior)
         return jnp.where(counts[:, None] > 0, new, centres)

@@ -1,6 +1,6 @@
 """Loss functions for the multi-modal VAE family.
 
-Reference semantics (matched numerically, re-derived for TPU):
+Reference semantics (matched numerically, re-derived in JAX):
 - ``gaussian_kl``       <- kl_loss, src/module/function.py:84-98
 - ``focal_binary_loss`` <- binary_loss, src/module/function.py:73-82
 - ``prior_repulsion``   <- regulizer_loss, src/module/function.py:40-71

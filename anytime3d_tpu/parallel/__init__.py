@@ -3,8 +3,8 @@
 The reference's only distribution is single-host MirroredStrategy data
 parallelism (SURVEY.md §2.7). Here: a global ``jax.sharding.Mesh`` over
 ('data', 'model') axes — DP via batch sharding on 'data' (XLA inserts the
-gradient psum over ICI), TP via parameter sharding of the large decoder /
-head kernels on 'model'. Multi-host extends the same mesh across DCN via
+gradient psum), TP via parameter sharding of the large decoder /
+head kernels on 'model'. Multi-host extends the same mesh across hosts via
 ``jax.distributed.initialize``.
 """
 

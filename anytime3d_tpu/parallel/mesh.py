@@ -1,12 +1,13 @@
-"""Device mesh and sharding utilities (TPU-native replacement for the
-reference's tf.distribute.MirroredStrategy, src/module/AE3D.py:36-42).
+"""Device mesh and sharding utilities (replacement for the reference's
+tf.distribute.MirroredStrategy, src/module/AE3D.py:36-42).
 
 Design: one global Mesh('data', 'model'). Data parallelism shards the batch
 over 'data'; tensor parallelism shards the channel-heavy kernels (decoder
 dense + deconv stacks, head 1x1 projections) over 'model'. With jit +
 NamedSharding, XLA chooses and schedules the collectives (psum for grad sync,
-all-gather where a TP kernel's activations rejoin) — riding ICI, never DCN,
-when the mesh is laid out with 'model' innermost (mesh_utils default).
+all-gather where a TP kernel's activations rejoin). The mesh follows the
+algorithm alone: the GPUs of one host are joined all to all (NVLink), so no
+device order is preferred.
 """
 
 from __future__ import annotations

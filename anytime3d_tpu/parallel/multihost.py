@@ -2,7 +2,7 @@
 
 The reference is single-host only (MirroredStrategy; SURVEY.md §2.7). Here a
 multi-host run is the same program on every host: ``initialize()`` joins the
-cluster, the global Mesh spans all hosts (ICI within a slice, DCN across),
+cluster, the global Mesh spans all hosts,
 loaders take (process_index, process_count) shard splits (see
 ModelNetLoader), and each host feeds only its addressable shard of the
 batch via ``host_local_batch_slice``.

@@ -2,7 +2,7 @@
 
 Replaces the reference's eager per-image test-script inference
 (``/root/reference/test_modelnet_3D.py``, ``nolbo_test.py``) with a
-deployable artifact (``export_infer``/``load_infer``) and a TPU-shaped
+deployable artifact (``export_infer``/``load_infer``) and a fixed-shape
 request coalescer (``MicroBatcher``)."""
 
 from anytime3d_tpu.serving.batcher import MicroBatcher

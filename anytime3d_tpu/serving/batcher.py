@@ -3,20 +3,19 @@
 The reference serves predictions by looping ``sess.run`` per image in eager
 test scripts (``/root/reference/test_modelnet_3D.py:104-143``,
 ``/root/reference/src/module/nolbo_test.py:81-130``) — one graph dispatch per
-request, no batching. On TPU that shape of serving is doubly wrong: per-call
-dispatch wastes the MXU (batch-1 matmuls), and variable request counts would
-force one XLA compilation per distinct batch size.
+request, no batching. On an accelerator that shape of serving is doubly
+wrong: per-call dispatch runs batch-1 matmuls, and variable request counts
+would force one XLA compilation per distinct batch size.
 
-``MicroBatcher`` fixes both with the standard TPU serving recipe:
+``MicroBatcher`` fixes both:
 
 - ONE static batch shape, compiled once. Incoming requests are coalesced by
   a background thread into groups of at most ``batch_size``; short groups are
-  PADDED to the full batch (padding rows are computed and discarded — on TPU
-  the step is batch-bound by the compiled shape anyway, so padding costs
-  nothing extra).
+  PADDED to the full batch (padding rows are computed and discarded; what
+  padded rows cost on the GPU is not measured).
 - ``submit`` returns a ``concurrent.futures.Future`` immediately; callers
   block only on their own result. The coalescing window (``max_wait_s``)
-  trades p50 latency for occupancy, exactly like production TPU servers.
+  trades p50 latency for occupancy.
 - The compute function is anything with the exported signature
   ``fn(x, mask) -> dict`` — typically :func:`serving.export.load_infer`'s
   deserialized program, so the server process needs no model code.
@@ -60,7 +59,7 @@ class MicroBatcher:
         results have been fetched: jax dispatch is async (the call returns
         at enqueue), so batch k+1's host-side packing and device enqueue
         overlap batch k's device compute AND its device->host result fetch
-        (which on tunneled backends costs a full RTT). One completion
+        One completion
         thread fetches + distributes in FIFO order; ``max_in_flight=1``
         restores strict serial behavior."""
         self._fn = infer_fn

@@ -1,4 +1,4 @@
-"""Training layer: pjit train steps over a device mesh, trainer loop, Orbax
+"""Training layer: jitted train steps over a device mesh, trainer loop,
 checkpointing. Reference counterparts: the fit()/GradientTape methods of
 src/module/nolbo.py + AE3D.py and the root train_*.py loops.
 """

@@ -7,26 +7,39 @@ one pytree, checkpointed atomically by ``anytime3d_tpu.train.checkpoint``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
-from flax.core import FrozenDict
 
 
-class TrainState(struct.PyTreeNode):
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """A pytree: ``step``, ``params`` and ``opt_state`` are its leaves;
+    ``apply_fn`` and ``tx`` are static."""
+
     step: jax.Array
     params: Any
     opt_state: Any
-    apply_fn: Callable = struct.field(pytree_node=False)
-    tx: optax.GradientTransformation = struct.field(pytree_node=False)
+    apply_fn: Callable
+    tx: optax.GradientTransformation
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
     def apply_gradients(self, grads):
         updates, new_opt_state = self.tx.update(grads, self.opt_state, self.params)
         new_params = optax.apply_updates(self.params, updates)
         return self.replace(step=self.step + 1, params=new_params, opt_state=new_opt_state)
+
+
+jax.tree_util.register_dataclass(
+    TrainState,
+    data_fields=["step", "params", "opt_state"],
+    meta_fields=["apply_fn", "tx"],
+)
 
 
 def flat_adam(
@@ -35,13 +48,10 @@ def flat_adam(
     """Adam over ONE contiguous flat buffer — numerically exact Adam (same
     math; only fp reassociation at the concatenate boundaries differs).
 
-    MEASURED NEGATIVE RESULT (kept for documentation): on the v5e flagship
-    step this is 16.4 ms vs 14.4 ms for per-leaf ``optax.adam`` — the
-    ravel/unravel concatenate/slice copies MATERIALIZE (108 MB each way)
-    instead of fusing, and they serialize against the per-leaf gradient
-    producers. XLA already handles the per-leaf optimizer well; the
-    hundreds-of-small-kernels theory did not survive measurement
-    (docs/KERNELS.md round-3 log). Default off."""
+    Default off: the ravel/unravel concatenate and slice copies (108 MB each
+    way on the flagship) can materialise instead of fusing into the
+    per-leaf gradient producers. Its speed against per-leaf ``optax.adam``
+    is not measured on the H100."""
     from jax.flatten_util import ravel_pytree
 
     def init(params):
@@ -78,8 +88,8 @@ def create_train_state(
     """Initialize params with a sample input and build an Adam optimizer
     (reference default lr 1e-4, e.g. train_pascal.py:70). Uses the model's
     ``initialize`` method when present so every submodule gets params.
-    ``flat_opt`` selects the flat-buffer Adam (exact same update; measured
-    SLOWER on TPU — see :func:`flat_adam`); default per-leaf ``optax.adam``."""
+    ``flat_opt`` selects the flat-buffer Adam (exact same update, see
+    :func:`flat_adam`); default per-leaf ``optax.adam``."""
     method = getattr(model, "initialize", None)
     params = model.init(
         {"params": key, "dropout": key},

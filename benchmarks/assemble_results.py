@@ -85,14 +85,14 @@ def main(argv=None):
         with open(path) as fh:
             data = json.load(fh)
         # only quality runs join the sweep sections; other artifacts
-        # (scaling_cpu, bench_families, serving_bench) are linked below
+        # (scaling_cpu) are linked below
         if "sweep" in data or name.startswith("detector"):
             runs[name] = data
 
     lines = [
         "# RESULTS — quality parity runs",
         "",
-        "All runs: single v5e chip, bf16 compute, the class-informative",
+        "All runs: one accelerator, bf16 compute, the class-informative",
         "synthetic ModelNet40 stand-in (data/modelnet.py::SyntheticVoxelLoader —",
         "no real shards ship in this image; 8 shape families x per-class",
         "extents x 4 yaw rotations, the dataset's 4rot analogue). Protocols",
@@ -130,8 +130,8 @@ def main(argv=None):
             )
             lines.append("")
         lines.append(
-            f"{res['steps']} steps, batch {res['batch_size']}, {res['dtype']}, "
-            f"{res['train_seconds']:.0f}s train; final train metrics: "
+            f"{res['steps']} steps, batch {res['batch_size']}, {res['dtype']}; "
+            f"final train metrics: "
             + ", ".join(
                 f"{k}={v:.4g}" for k, v in sorted(res["final_train"].items())
             )
@@ -160,7 +160,7 @@ def main(argv=None):
         lines.append("")
         lines.append("| layout | steps | P | R | acc |")
         lines.append("|---|---|---|---|---|")
-        variants = [("blocked (TPU)", rb), ("classic (reference)", rc)] + [
+        variants = [("blocked (default)", rb), ("classic (reference)", rc)] + [
             (lbl, runs[k])
             for lbl, k in (
                 ("enc_blocked (blocked head, classic dec)", "modelnet_nolbo_encblocked"),
@@ -189,9 +189,9 @@ def main(argv=None):
                 "most of it). The blocked encoder head is free — "
                 "`configs.modelnet_nolbo_acc` combines it with the classic "
                 "decoder for classification-critical workloads, and since "
-                "r4's exact phase-equiv lowering (KERNELS.md §10) it runs "
-                "the classic parameterization at 22.5 ms/step (was 28.4; "
-                "blocked 14.3): same kernel tensors, init, and Adam "
+                "r4's exact phase-equiv lowering (KERNELS.md §5) it runs "
+                "the classic parameterization through phase convs: same "
+                "kernel tensors, init, and Adam "
                 "trajectory as enc_blocked, different lowering — the "
                 "'equiv' row is the empirical confirmation."
             )
@@ -391,8 +391,6 @@ def main(argv=None):
             )
     for extra, label in (
         ("scaling_cpu", "CPU-mesh scaling semantics validation"),
-        ("bench_families", "bench family snapshot"),
-        ("serving_bench", "serving latency/throughput"),
     ):
         path = os.path.join(args.results, extra + ".json")
         if os.path.exists(path):

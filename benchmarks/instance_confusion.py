@@ -42,7 +42,7 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
     from anytime3d_tpu.utils.profiling import enable_compilation_cache
 
-    enable_compilation_cache("/tmp/anytime3d_jax_cache")
+    enable_compilation_cache()
 
     import jax
     import jax.numpy as jnp

@@ -1,14 +1,13 @@
 #!/bin/bash
-# Sequential quality-parity suite (one TPU job at a time — remote compiles
-# serialize). Each run writes docs/results/<name>.json + a training JSONL.
+# Sequential quality-parity suite (one job at a time on the accelerator). Each run writes docs/results/<name>.json + a training JSONL.
 set -x
-cd /root/repo
-mkdir -p docs/results /tmp/qlogs
+cd "$(dirname "$0")/.."
+mkdir -p docs/results runs/qlogs
 run() {
   name=$1; shift
   timeout 7200 python benchmarks/quality_parity.py "$@" \
-    --out docs/results/${name}.json --jsonl /tmp/qlogs/${name}.jsonl \
-    > /tmp/qlogs/${name}.log 2>&1
+    --out docs/results/${name}.json --jsonl runs/qlogs/${name}.jsonl \
+    > runs/qlogs/${name}.log 2>&1
   echo "=== ${name} exit $? ==="
 }
 run modelnet_nolbo          --config modelnet_nolbo --steps 20000
@@ -20,24 +19,15 @@ run modelnet_ae             --config modelnet_ae    --steps 20000
 runq() {
   name=$1; shift
   timeout 7200 python benchmarks/quality_image.py "$@" \
-    --out docs/results/${name}.json --jsonl /tmp/qlogs/${name}.jsonl \
-    > /tmp/qlogs/${name}.log 2>&1
+    --out docs/results/${name}.json --jsonl runs/qlogs/${name}.jsonl \
+    > runs/qlogs/${name}.log 2>&1
   echo "=== ${name} exit $? ==="
 }
 runq pascal_nolbo    --config pascal_nolbo    --steps 8000
 runq kitti_inst_only --config kitti_inst_only --steps 8000
 
-# regression visibility for the secondary bench families (committed JSON)
-timeout 3600 python bench.py --all > /tmp/qlogs/bench_all.txt 2>/dev/null
-python - <<'PYEOF'
-import json
-lines = [json.loads(l) for l in open('/tmp/qlogs/bench_all.txt') if l.startswith('{')]
-json.dump({"harness": "bench.py --all", "families": lines},
-          open('docs/results/bench_families.json', 'w'), indent=1)
-PYEOF
-
 # CPU-mesh scaling semantics validation (virtual devices; see the JSON note)
 XLA_FLAGS="--xla_force_host_platform_device_count=8" \
   timeout 1800 python benchmarks/scaling.py --force-cpu --tiny \
-  --per-device-batch 8 --iters 10 > /tmp/qlogs/scaling_dp.txt 2>/dev/null
+  --per-device-batch 8 --iters 10 > runs/qlogs/scaling_dp.txt 2>/dev/null
 echo "SUITE DONE"

@@ -39,7 +39,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config", default="pascal_nolbo")
     p.add_argument("--params", required=True,
-                   help="Orbax params dir from quality_image --save-params")
+                   help="params dir from quality_image --save-params")
     p.add_argument("--structural-inst", action="store_true")
     p.add_argument("--inst-spread", type=float, default=0.4)
     p.add_argument("--objects", type=int, default=512,
@@ -74,7 +74,7 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
     from anytime3d_tpu.utils.profiling import enable_compilation_cache
 
-    enable_compilation_cache("/tmp/anytime3d_jax_cache")
+    enable_compilation_cache()
 
     import jax
     import jax.numpy as jnp

@@ -2,17 +2,18 @@
 checkpoint across lowerings without retraining.
 
 The shared 64³ decoder (reference: src/net_core/autoencoder3D.py:104-139)
-ships in three lowerings (RESULTS.md A/B at matched 8000 steps, v5e):
+ships in three lowerings (RESULTS.md A/B at matched 8000 steps; the step
+time of each on the H100 is not measured):
 
-- blocked (throughput default, `configs.modelnet_nolbo`): 14.3 ms/step,
-  category acc 0.686 — the tail is REPARAMETERIZED (pixel-shuffle phase
-  convs), so its training dynamics differ from the reference's.
-- exact phase-equiv (`configs.modelnet_nolbo_acc`): 22.5 ms/step, acc
-  0.740 — the CLASSIC parameterization (same kernel tensors, init, Adam
-  trajectory as stride-2 transposed convs; tests/test_nn.py::
-  TestTransposeEquiv) under a TPU-friendly lowering (KERNELS.md §10).
-- classic XLA transpose lowering: 28.4 ms/step, same dynamics as equiv —
-  kept for parity verification.
+- blocked (default, `configs.modelnet_nolbo`): category acc 0.686 — the
+  tail is REPARAMETERIZED (pixel-shuffle phase convs), so its training
+  dynamics differ from the reference's.
+- exact phase-equiv (`configs.modelnet_nolbo_acc`): acc 0.740 — the
+  CLASSIC parameterization (same kernel tensors, init, Adam trajectory as
+  stride-2 transposed convs; tests/test_nn.py::TestTransposeEquiv) under a
+  phase-conv lowering (KERNELS.md §5).
+- classic XLA transpose lowering: same dynamics as equiv — kept for
+  parity verification.
 
 Because classic and equiv share parameter TENSORS, a checkpoint trained
 under one loads into the other via a pure path rename — shown below with

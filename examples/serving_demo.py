@@ -6,8 +6,9 @@ touches no model code. Swap `tiny_cfg()` for `configs.variant(...)[0]` and
 `create_train_state` for `restore_state` to serve a trained checkpoint
 (or export offline with `python -m anytime3d_tpu.cli.export`).
 
-Run anywhere: `python examples/serving_demo.py` (CPU ok; on the real chip
-the same bytes compile for TPU).
+Run anywhere: `python examples/serving_demo.py` (CPU ok; the artifact is
+lowered for the backend that exports it — pass ``platforms=("cuda",)`` to
+export for the GPU).
 """
 
 import os

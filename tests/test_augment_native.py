@@ -16,9 +16,13 @@ from anytime3d_tpu.data.augment import (
     remap_bbox,
 )
 
-needs_native = pytest.mark.skipif(
-    not augment_native_available(), reason="libaugment.so not built (make -C native)"
-)
+@pytest.fixture
+def native_augment():
+    if not augment_native_available():
+        pytest.skip("libaugment.so cannot be built here (make -C native)")
+
+
+needs_native = pytest.mark.usefixtures("native_augment")
 
 
 def _images(rng, n=6, hetero=True):

@@ -32,7 +32,6 @@ def test_cli_train_modelnet_fixture(tmp_path, packed):
         "--data", os.path.join(FIX, "modelnet"),
         "--batch-size", "2", "--steps", "2", "--eval-every", "0",
         "--jsonl", str(tmp_path / "m.jsonl"),
-        "--compilation-cache", "",
     ]
     if packed:
         argv.append("--packed")
@@ -47,7 +46,6 @@ def test_cli_train_pascal_fixture(tmp_path):
         "--batch-size", "2", "--steps", "2", "--eval-every", "0",
         "--image-size", "64",
         "--jsonl", str(tmp_path / "p.jsonl"),
-        "--compilation-cache", "",
     ])
     assert (tmp_path / "p.jsonl").exists()
 
@@ -60,6 +58,5 @@ def test_cli_train_kitti_fixture(tmp_path):
         "--batch-size", "2", "--steps", "2", "--eval-every", "0",
         "--image-size", "64",
         "--jsonl", str(tmp_path / "k.jsonl"),
-        "--compilation-cache", "",
     ])
     assert (tmp_path / "k.jsonl").exists()

@@ -176,7 +176,7 @@ class TestAveragePrecision:
 
 
 def test_packed_batch_matches_unpacked():
-    """The tunnel transfer form (uint8 images + bit-packed voxels) produces
+    """The compact transfer form (uint8 images + bit-packed voxels) produces
     the same loss as the raw float batch, bit-for-bit where images quantize
     exactly (we feed images already on the 1/255 grid)."""
     from anytime3d_tpu.data.packing import pack_voxels

@@ -179,7 +179,7 @@ class TestMidBlocked:
     """mid_blocked: every stride-2 stage as s2d(2)/d2s(2) + k=2 s=1 conv —
     same linear family and PARAMETER COUNT as the classic stride-2 stages
     (4^3*Cin*Cout == 2^3*(8*Cin)*Cout, and transpose 4^3*Cin*Cout ==
-    2^3*Cin*(8*Cout)), stride-1 MXU tiling, no dilated lowering in either
+    2^3*Cin*(8*Cout)), stride-1 tiling, no dilated lowering in either
     direction."""
 
     def _enc_cfg(self, **kw):
@@ -274,7 +274,7 @@ class TestTransposeEquiv:
     dynamics as the classic layout; only the lowering differs."""
 
     def test_module_exact_parity(self):
-        import flax.linen as nn
+        from anytime3d_tpu.nn import module as nn
         from anytime3d_tpu.nn.blocks import ConvTransposeEquiv3D
 
         rng = np.random.default_rng(1)
@@ -444,7 +444,7 @@ class TestTransposeEquiv:
 
 class TestBlockedTailDynamicsFixes:
     """r5 in-place fixes for the blocked tail's training dynamics
-    (KERNELS.md §10: init fan-in shift + per-phase GroupNorm statistics)."""
+    (KERNELS.md §5: init fan-in shift + per-phase GroupNorm statistics)."""
 
     def test_phase_group_norm_matches_classic_fine_grid(self):
         """PhaseGroupNorm on the coarse phase tensor == classic GroupNorm

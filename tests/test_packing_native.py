@@ -3,21 +3,21 @@
 The contract: `pack_voxels_blocked` produces IDENTICAL bytes whether the
 native single-pass packer or the NumPy transpose+packbits path runs — the
 bit order is np.packbits MSB-first over the (B, D/b, H/b, W/b, b, b, b, C)
-transpose flatten. Skips if libpack.so is not built (`make -C native`)."""
-
-import os
+transpose flatten. Skips where libpack.so cannot be built (`make -C native`)."""
 
 import numpy as np
 import pytest
 
 from anytime3d_tpu.data import packing
 
-_HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_LIB = os.path.join(_HERE, "native", "libpack.so")
 
-needs_lib = pytest.mark.skipif(
-    not os.path.exists(_LIB), reason="libpack.so not built (make -C native)"
-)
+@pytest.fixture
+def native_pack():
+    if packing._find_pack_lib() is None:
+        pytest.skip("libpack.so cannot be built here (make -C native)")
+
+
+needs_lib = pytest.mark.usefixtures("native_pack")
 
 
 def _numpy_oracle(v, b):

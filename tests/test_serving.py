@@ -83,6 +83,22 @@ class TestExportRoundtrip:
         assert "category" not in out
         assert out["pred"].shape == (4, DIM, DIM, DIM, 1)
 
+    def test_platforms_recorded_in_artifact(self):
+        """An artifact runs only where it was lowered for: the default is the
+        exporting backend; a GPU artifact made here is refused here."""
+        import pytest
+        from anytime3d_tpu.serving.export import deserialize_exported
+
+        model, params, batch = _make_model()
+        here = export_infer(model, params, input_shape=(4, DIM, DIM, DIM, 1))
+        assert deserialize_exported(here).platforms == ("cpu",)
+        gpu = export_infer(
+            model, params, input_shape=(4, DIM, DIM, DIM, 1), platforms=("cuda",)
+        )
+        assert deserialize_exported(gpu).platforms == ("cuda",)
+        with pytest.raises(ValueError, match="exported for platforms"):
+            load_infer(gpu)(batch["input"], jnp.ones((4, Z), jnp.float32))
+
 
 class TestMicroBatcher:
     def test_pads_and_routes_concurrent(self):
@@ -297,7 +313,7 @@ class TestDetectorExport:
 
 class TestPackedIO:
     """Packed-IO export: uint8 bit IO round-trips exactly against the float
-    program (32x less transfer each way — the tunnel-serving path)."""
+    program (32x less transfer each way — the packed serving path)."""
 
     def test_device_pack_matches_packbits(self):
         from anytime3d_tpu.data.packing import pack_voxels, pack_voxels_device
